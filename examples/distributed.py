@@ -6,12 +6,11 @@ here), so the batch shards over a 1-D mesh and every device compresses its
 rows with the same jitted program; results gather back in original chunk
 order.
 
-Production guidance (measured -- MULTICHIP_SCALING.json "diagnosis"): keep
-outputs SHARDED (gather=False) between pipeline stages, or gather once at
-the very end.  gather=True replicates the full output to every device, and
-on an N-device mesh that N-x traffic can halve decode throughput.
+Keep outputs SHARDED (gather=False) between pipeline stages, or gather
+once at the very end: gather=True replicates the full output to every
+device, N times the traffic on an N-device mesh.
 
-Run single-host (8 virtual devices):
+Run on the GPUs of one host, or on 8 virtual CPU devices:
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/distributed.py
 

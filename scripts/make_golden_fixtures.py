@@ -1,4 +1,4 @@
-"""Hand-assembled spec-edge golden streams (VERDICT r3 #6).
+"""Hand-assembled spec-edge golden streams.
 
 Builds LZ4 and Snappy streams byte-by-byte from the format specs --
 independent of both the codecs and the test oracles -- hitting the edges

@@ -39,10 +39,14 @@ def lz4_decompress_oracle(comp: bytes, max_out: int | None = None) -> bytes:
                 ll += b
                 if b != 255:
                     break
+        if p + ll > n:
+            raise ValueError("literals past the end of the stream")
         out += comp[p : p + ll]
         p += ll
         if p >= n:
             break  # last sequence: literals only
+        if p + 2 > n:
+            raise ValueError("offset past the end of the stream")
         off = comp[p] | (comp[p + 1] << 8)
         p += 2
         if off == 0 or off > len(out):
@@ -60,6 +64,8 @@ def lz4_decompress_oracle(comp: bytes, max_out: int | None = None) -> bytes:
             out.append(out[src + k])
         if max_out is not None and len(out) > max_out:
             raise ValueError("output overflow")
+        if p >= n:  # the block format ends with a literals-only sequence
+            raise ValueError("stream ends with a match")
     return bytes(out)
 
 

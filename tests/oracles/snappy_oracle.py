@@ -46,12 +46,18 @@ def snappy_decompress_oracle(comp: bytes) -> bytes:
             ln = tag >> 2
             if ln >= 60:
                 k = ln - 59
+                if p + k > len(comp):
+                    raise ValueError("literal length past the end of the stream")
                 ln = int.from_bytes(comp[p : p + k], "little")
                 p += k
             ln += 1
+            if p + ln > len(comp):
+                raise ValueError("literals past the end of the stream")
             out += comp[p : p + ln]
             p += ln
         else:
+            if p + (1, 2, 4)[kind - 1] > len(comp):
+                raise ValueError("copy offset past the end of the stream")
             if kind == 1:
                 ln = ((tag >> 2) & 7) + 4
                 off = ((tag >> 5) << 8) | comp[p]

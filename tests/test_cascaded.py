@@ -225,7 +225,7 @@ def test_detect_opts_roundtrip(rng):
 
 def test_longlong_requires_x64_loudly():
     """8-byte element types must fail fast at compress()/decompress() when
-    x64 mode is off (VERDICT r4 task 7): without it JAX silently downcasts
+    x64 mode is off: without it JAX silently downcasts
     uint64 and the artifact would be corrupt."""
     import jax
 

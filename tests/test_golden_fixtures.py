@@ -1,4 +1,4 @@
-"""Spec-edge golden byte fixtures (VERDICT r3 #6).
+"""Spec-edge golden byte fixtures.
 
 tests/fixtures/{lz4,snappy}_golden.json hold hand-assembled streams hitting
 the format edges the reference's constants pin: LSIC 255-chain boundaries,
@@ -7,8 +7,8 @@ src/LZ4Kernels.hiph:162,168-169), snappy copy4 tags and multi-byte literal
 lengths the compressor never emits (the SnappyLargeTokens obligation,
 reference src/test/SnappyLargeTokens_test.cpp).  The bytes are COMMITTED --
 decoders are checked against the spec itself, not against our oracles.
-Both the XLA route and the Pallas kernels (interpret mode) must decode
-every case.
+Every case decodes as one batch through the codec module, and again on its
+own through the low-level batch API (the LLIF a user calls).
 """
 
 import json
@@ -75,15 +75,6 @@ def test_lz4_golden_xla(lz4_cases):
     assert (got == np.array([len(e) for _, _, e in lz4_cases])).all()
 
 
-def test_lz4_golden_pallas(lz4_cases):
-    from tpucomp.kernels import lz_pallas
-
-    cap = max(len(e) for _, _, e in lz4_cases)
-    comp, sizes = _batchify([s for _, s, _ in lz4_cases])
-    out, lens, sts = lz_pallas.decompress(comp, sizes, cap, interpret=True)
-    _check(out, lens, sts, lz4_cases)
-
-
 def test_snappy_golden_xla(snappy_cases):
     from tpucomp.codecs import snappy
 
@@ -95,13 +86,26 @@ def test_snappy_golden_xla(snappy_cases):
     assert (got == np.array([len(e) for _, _, e in snappy_cases])).all()
 
 
-def test_snappy_golden_pallas(snappy_cases):
-    from tpucomp.kernels import snappy_pallas
+@pytest.mark.parametrize(
+    "fmt,case",
+    [("lz4", k) for k, _, _ in _load("lz4")] + [("snappy", k) for k, _, _ in _load("snappy")],
+)
+def test_golden_case_llif(fmt, case):
+    """Each golden stream on its own through the LLIF (one compiled program
+    per format: every case is padded to the format's widest stream)."""
+    from tpucomp import lz4_codec, snappy_codec
+    from tpucomp.core.chunking import ChunkBatch
 
-    cap = max(len(e) for _, _, e in snappy_cases)
-    comp, sizes = _batchify([s for _, s, _ in snappy_cases])
-    out, lens, sts = snappy_pallas.decompress(comp, sizes, cap, interpret=True)
-    _check(out, lens, sts, snappy_cases)
+    codec = {"lz4": lz4_codec, "snappy": snappy_codec}[fmt]
+    cases = _load(fmt)
+    cap = max(len(e) for _, _, e in cases)
+    width = max(len(st) for _, st, _ in cases) + 8
+    (name, stream, expect), = [c for c in cases if c[0] == case]
+    comp = np.zeros((1, width), np.uint8)
+    comp[0, : len(stream)] = np.frombuffer(stream, np.uint8)
+    sizes = jnp.asarray([len(stream)], jnp.int32)
+    out, sts = codec.decompress(ChunkBatch(jnp.asarray(comp), sizes), cap)
+    _check(out.data, out.lengths, sts, [(name, stream, expect)])
 
 
 def test_fixtures_pinned():

@@ -190,7 +190,7 @@ def test_wide_placement_bit_identical(rng):
 
 def test_wide_artifact_requires_x64():
     """>= 1 GiB artifact bounds demand x64 placement with a clear error
-    when it is off (VERDICT r4 task 8; reference u64 tables are uncapped)."""
+    when it is off (reference u64 tables are uncapped)."""
     import jax
     from tpucomp.highlevel.manager import LZ4Manager
 

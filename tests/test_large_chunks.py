@@ -2,9 +2,8 @@
 include/hipcomp/lz4.h:67-74 with MAX_CHUNK_SIZE = 1<<24 at
 src/LZ4Kernels.hiph:174; cascaded partitions are unbounded).
 
-Validates the 256 KB, 1 MB, 4 MB and 16 MB points on CPU (the XLA
-routes; the Pallas paths gate at ~1 MB and are validated on hardware by
-scripts/large_chunks_hw.py, whose results are recorded in PERF.md).  The
+Validates the 256 KB, 1 MB, 4 MB and 16 MB points on CPU
+(scripts/large_chunks_hw.py runs the same points on the GPU).  The
 multi-MB tests use compressible data so the sequence-sequential delimit
 loop stays fast while the full size range is exercised; peak memory for
 the 16 MB LZ4 point is ~3.5 GB (bounded by lz77.MATCH_H_CAP capping the

@@ -286,26 +286,49 @@ def test_large_chunk_64k(rng):
     assert np.asarray(out)[0, : np.asarray(lens)[0]].tobytes() == a.tobytes()
 
 
-def test_merged_table_boundary_matches():
-    """The packed (pos << 16) | dist candidate entries must stay exact when
-    the position's high bit sets the packed sign bit (pos >= 32768) and at
-    the distance cap (65535) -- regression for the round-5 merged-table
-    parse (kernels/lz_pallas.py)."""
-    import sys, os
-    sys.path.insert(0, os.path.dirname(__file__))
-    from oracles.lz4_oracle import lz4_compress_oracle
-    from tpucomp.kernels import lz_pallas
-
+def test_far_match_boundaries():
+    """Matches at positions past 32768 and at the deepest distance the
+    format admits in a 64 KB chunk: the encoder must find both and emit a
+    stream the oracle decodes back to the input."""
     rng = np.random.default_rng(9)
     base = rng.integers(1, 255, 65536, dtype=np.uint8)
-    # far match near the distance cap, at the highest encodable positions
+    # far match near the distance cap, at the highest encodable position
     # (candidates require i <= n-13, so 65500 with distance 65500 is the
-    # deepest sign-bit-range case the format admits here)
+    # deepest case the format admits here)
     base[65500 : 65500 + 16] = base[0:16]
-    # a second match entirely in the sign-bit position range
+    # a second match entirely past position 32768
     base[40000:40032] = base[35000:35032]
     data = jnp.asarray(base[None, :])
     lens = jnp.full((1,), 65536, jnp.int32)
-    comp, sizes = lz_pallas.compress(data, lens, interpret=True)
+    comp, sizes = lz4.compress(data, lens)
     got = np.asarray(comp)[0, : int(np.asarray(sizes)[0])].tobytes()
-    assert got == lz4_compress_oracle(base.tobytes())
+    assert lz4_decompress_oracle(got) == base.tobytes()
+    found = {(start, off) for start, off, _ in _parse_sequences(got)}
+    assert (65500, 65500) in found and (40000, 5000) in found, sorted(found)[-4:]
+
+
+def test_delimit_unroll_by_backend(monkeypatch):
+    assert lz4._delimit_unroll() == 8  # the CPU backend
+    monkeypatch.setattr(lz4.jax, "default_backend", lambda: "gpu")
+    assert lz4._delimit_unroll() == 16
+
+
+@pytest.mark.parametrize("unroll", [1, 3, 16])
+def test_delimit_result_independent_of_unroll(rng, unroll):
+    """Sequence tables, counts and verdicts do not depend on how many
+    sequences one loop iteration decodes (valid and truncated streams)."""
+    import jax
+
+    arrays = list(_profiles(rng).values())
+    comp, sizes = _compress(arrays)
+    sizes = sizes.copy()
+    sizes[1] = sizes[1] // 2  # truncated
+    s_max = comp.shape[-1] // 3 + 2
+
+    def run(u):
+        f = jax.vmap(lambda d, n: lz4._delimit(d, n, C, s_max, unroll=u))
+        return jax.tree.map(np.asarray, f(jnp.asarray(comp), jnp.asarray(sizes)))
+
+    want, got = run(8), run(unroll)
+    for a, b in zip(jax.tree.leaves(want), jax.tree.leaves(got)):
+        np.testing.assert_array_equal(a, b)

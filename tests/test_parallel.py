@@ -1,7 +1,7 @@
 """Distribution layer tests on a virtual 8-device CPU mesh.
 
 The reference has no multi-device layer (SURVEY.md §2.3); this is the new
-TPU-native surface: chunk batches shard data-parallel over a Mesh, options
+distribution surface: chunk batches shard data-parallel over a Mesh, options
 replicate, outputs gather in original chunk order.  Because chunks are
 independent, sharded results must be bit-identical to single-device runs.
 """

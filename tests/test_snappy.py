@@ -170,20 +170,41 @@ def test_variable_chunk_sizes(rng):
     _roundtrip(arrays)
 
 
-def test_merged_table_boundary_matches():
-    """Snappy twin of the lz4 merged-table boundary regression: positions
-    past 32768 (packed sign bit) and the 32768 distance cap."""
-    import sys, os
-    sys.path.insert(0, os.path.dirname(__file__))
-    from oracles.snappy_oracle import snappy_compress_oracle
-    from tpucomp.kernels import snappy_pallas
-
+def test_far_match_boundaries():
+    """Matches past position 32768 and at exactly the 32768 distance cap
+    must be found, and the stream must decode with the oracle."""
     rng = np.random.default_rng(9)
     base = rng.integers(1, 255, 65536, dtype=np.uint8)
     base[32768 : 32768 + 24] = base[0:24]       # distance exactly 32768
-    base[50000:50032] = base[45000:45032]       # sign-bit position range
+    base[50000:50032] = base[45000:45032]       # past position 32768
     data = jnp.asarray(base[None, :])
     lens = jnp.full((1,), 65536, jnp.int32)
-    comp, sizes = snappy_pallas.compress(data, lens, interpret=True)
+    comp, sizes = snappy.compress(data, lens)
     got = np.asarray(comp)[0, : int(np.asarray(sizes)[0])].tobytes()
-    assert got == snappy_compress_oracle(base.tobytes())
+    assert snappy_decompress_oracle(got) == base.tobytes()
+    assert {32768, 5000} <= set(_copy_offsets(got))
+
+
+def _copy_offsets(comp: bytes):
+    """Offsets of the copy elements of a raw snappy stream."""
+    p = 0
+    while comp[p] & 0x80:  # varint length
+        p += 1
+    p += 1
+    while p < len(comp):
+        tag, kind = comp[p], comp[p] & 3
+        if kind == 0:
+            ln = tag >> 2
+            k = ln - 59 if ln >= 60 else 0
+            if k:
+                ln = int.from_bytes(comp[p + 1 : p + 1 + k], "little")
+            p += 1 + k + ln + 1
+        elif kind == 1:
+            yield ((tag >> 5) << 8) | comp[p + 1]
+            p += 2
+        elif kind == 2:
+            yield int.from_bytes(comp[p + 1 : p + 3], "little")
+            p += 3
+        else:
+            yield int.from_bytes(comp[p + 1 : p + 5], "little")
+            p += 5

@@ -1,4 +1,4 @@
-"""tpucomp: TPU-native batched lossless compression.
+"""tpucomp: batched lossless compression in JAX.
 
 A from-scratch JAX/XLA framework with the capabilities of hipCOMP-core
 (nvCOMP 2.2 lineage): batched LZ4, Snappy and Cascaded

@@ -1,6 +1,6 @@
 """Fused batched Cascaded codec (RLE / Delta / BitPack pipeline).
 
-TPU-native re-design of the reference's fused kernels
+Dense-XLA re-design of the reference's fused kernels
 (do_cascaded_compression_kernel, src/CascadedKernels.hiph:766-1058;
 cascaded_decompression_fcn, :1111-1435) producing byte-identical artifacts.
 
@@ -20,11 +20,11 @@ which the API requires to be 4B- and element-aligned):
 Incompressible partitions fall back to a raw copy with zeroed layer counts
 (:862-870, 1019-1029), capping output at roundUp4(n) + 8.
 
-Design notes (TPU-first, not a port):
+Design notes (a re-design, not a port):
   - a batch is a dense (data uint8[B, C], lengths int32[B]) pair; all work is
     dense vectorized math vmapped over partitions and chunks -- the
     threadblock/shared-memory structure of the reference maps to
-    chunk-blocked, VPU-friendly cumsum/searchsorted/gather pipelines
+    chunk-blocked cumsum/searchsorted/gather pipelines that XLA fuses
   - the per-partition chunk packing uses an exclusive cumsum instead of the
     reference's pointer walk; results are identical bytes
   - layer schedules are static Python unrolls (opts are static under jit)
@@ -548,14 +548,14 @@ def _compress_xla(data, lengths, opts: CascadedOpts):
 
 
 # ---------------------------------------------------------------------------
-# round-5 raw-fallback encode fast path
+# certain-fallback classifier
 #
-# On mixed/incompressible corpora ~3/4 of 64 KB partitions take the raw
-# fallback (a header + shifted byte copy), yet the compress pipeline used
-# to run in full for every partition before the fallback select.  The
-# classifier below proves fallback ahead of time for most such partitions;
-# the Pallas encode kernel then skips the whole pipeline for flagged cells
-# (per-cell cond on a prefetched flag, kernels/cascaded_pallas.py).
+# On mixed/incompressible corpora most 64 KB partitions take the raw
+# fallback (a header + shifted byte copy), yet the compress pipeline runs in
+# full for every partition before the fallback select.  The classifier
+# below proves fallback ahead of time for most such partitions, so an
+# encoder can skip the pipeline for them; tests/test_routing.py pins that it
+# never flags a partition the pipeline would compress.
 
 
 def _flags_supported(opts: CascadedOpts) -> bool:
@@ -690,23 +690,8 @@ def compress(data, lengths, opts: CascadedOpts):
     data: uint8[B, C]; lengths: int32[B].  Returns (comp uint8[B, PMAX],
     comp_sizes int32[B]).  Lengths that are not a multiple of the element
     width are truncated (reference behavior, src/CascadedKernels.hiph:846).
-
-    Routes to the fused Pallas TPU kernel (tpucomp/kernels/cascaded_pallas.py)
-    when enabled and supported; both paths emit identical bytes.  On the
-    Pallas path, partitions the _fallback_certain classifier proves will
-    take the raw fallback skip the whole pipeline inside the kernel (a
-    per-cell cond on a prefetched flag -- a single launch keeps the grid's
-    cross-cell overlap, which a block-level dispatch split measurably
-    destroys: 3.5 -> 1.5 GB/s on the mixed corpus).
     """
     opts.validate()
-    from tpucomp import config as _cfg
-
-    if _cfg.pallas_enabled():
-        from tpucomp.kernels import cascaded_pallas as _cp
-
-        if _cp.supports(opts, int(data.shape[1])):
-            return _cp.compress(data, lengths, opts)
     return _compress_xla(data, lengths, opts)
 
 
@@ -723,22 +708,8 @@ def decompress(comp, comp_sizes, opts: CascadedOpts, out_capacity: int):
     Returns (data uint8[B, out_capacity], lengths int32[B], statuses
     int32[B]).  Partitions whose stream metadata does not match ``opts``
     (other than the raw fallback) report ERROR_CANNOT_DECOMPRESS.
-
-    Routes to the fused Pallas TPU kernel when enabled and supported.  (A
-    decode-side fast-path router was built and measured in round 5 and
-    REMOVED: the kernel already conds off the inverse pipeline for
-    fallback partitions, so an all-fallback tile decodes at ~17 GB/s in a
-    single launch, and any block-level dispatch split loses the grid's
-    cross-cell overlap -- 3.4 -> 1.7 GB/s on the mixed corpus.)
     """
     opts.validate()
-    from tpucomp import config as _cfg
-
-    if _cfg.pallas_enabled():
-        from tpucomp.kernels import cascaded_pallas as _cp
-
-        if _cp.supports_decode(opts, int(comp.shape[1]), out_capacity):
-            return _cp.decompress(comp, comp_sizes, opts, out_capacity)
     return _decompress_xla(comp, comp_sizes, opts, out_capacity)
 
 

@@ -1,6 +1,6 @@
 """Batched LZ4 block codec.
 
-TPU-native re-design of the reference's warp-cooperative LZ4 kernels
+Dense-XLA re-design of the reference's warp-cooperative LZ4 kernels
 (compressStream, reference src/LZ4Kernels.hiph:794-969; decompressStream,
 :971-1097).  Streams are standard LZ4 block format: sequences of
 [token][litlen LSIC][literals][u16 LE offset][matchlen LSIC], last sequence
@@ -57,6 +57,19 @@ LAST_VALID_MATCH = 13  # match start <= n - 13 (mirrors the test oracle)
 PARSE_BLOCK = 4096  # independent greedy-parse blocks (lz77.block_parallel_parse)
 
 _INF = np.int32(2**30)  # numpy scalar: no backend init at import
+
+
+def _delimit_unroll() -> int:
+    """Sequences decoded per while-loop iteration of _delimit.
+
+    Each iteration also pays for its loop-carried per-sequence table.  On
+    the GPU that is a full copy of the table per iteration, so unrolling
+    amortizes it: 16 was the fastest of 1/4/8/16 on the H200.  XLA:CPU
+    updates the table in place up to about 9 steps per iteration and copies
+    it on every step beyond that (16 decodes a mixed 64 KB chunk ~50x slower
+    than 8), so 8 there.  Both measurements are in PERF.md.
+    """
+    return 16 if jax.default_backend() == "gpu" else 8
 
 
 # --------------------------------------------------------------------------
@@ -155,8 +168,10 @@ def _emit(data, lit_start, lit_len, match_len, offset, num_seqs, out_max: int):
 # --------------------------------------------------------------------------
 
 
-def _delimit(comp, comp_len, out_cap: int, s_max: int):
-    """Sequence boundaries: batched while_loop, one sequence per step."""
+def _delimit(comp, comp_len, out_cap: int, s_max: int, unroll: int | None = None):
+    """Sequence boundaries: batched while_loop, ``unroll`` sequences per
+    iteration (default: _delimit_unroll())."""
+    unroll = unroll or _delimit_unroll()
     c = comp.shape[-1]
     i = jnp.arange(c, dtype=jnp.int32)
     cb = comp.astype(jnp.int32)
@@ -184,10 +199,8 @@ def _delimit(comp, comp_len, out_cap: int, s_max: int):
     off_tbl = cb | (jnp.roll(cb, -1) << 8)
     mx_tbl = jnp.roll(ext_bytes, -2) | (jnp.roll(ext_total, -2) << 9)
 
-    # one row per sequence: (lit_src, lit_len, out_start, match_len, offset);
-    # UNROLL sequences per while iteration amortize the TPU loop-step cost
+    # one row per sequence: (lit_src, lit_len, out_start, match_len, offset)
     seqs = jnp.zeros((s_max, 5), jnp.int32)
-    unroll = 8
 
     def step(carry):
         p, o, s, done, ok, rows = carry
@@ -284,13 +297,7 @@ def compress(data, lengths, opts=None):
     match starts/offsets for 2/4-byte types), mirroring the reference's
     typed kernel dispatch (src/lowlevel/LZ4CompressionKernels.hip:185-219);
     streams are valid LZ4 blocks for any setting.
-
-    Routes to the Pallas TPU kernel (kernels/lz_pallas.py, scalar-core
-    greedy parse with exact unbounded match extension) when enabled; the
-    kernel's streams are byte-identical to the uncapped sequential oracle
-    and never larger than this module's block-clamped XLA parse.
     """
-    from tpucomp import config as _cfg
     from tpucomp.core.types import width_of
 
     c = data.shape[-1]
@@ -298,11 +305,6 @@ def compress(data, lengths, opts=None):
     s_max = c // MIN_MATCH + 2
     stride = width_of(opts.data_type) if opts is not None else 1
     lengths = lengths.astype(jnp.int32)
-    if _cfg.pallas_enabled():
-        from tpucomp.kernels import lz_pallas as _lzp
-
-        if _lzp.supports_compress(c):
-            return _lzp.compress(data, lengths, stride=stride)
     mlen, dist, cand = _jit_match(data, lengths, stride)
     ls, ll, ml, off, s = _jit_parse(mlen, dist, cand, lengths, s_max)
     return _jit_emit(data, ls, ll, ml, off, s, lengths, out_max)
@@ -331,17 +333,7 @@ def _jit_materialize(comp, seqs, s, total, ok, out_cap):
 def decompress(comp, comp_sizes, opts=None, out_capacity: int = 65536):
     """Batched LZ4 decompression.
     Returns (data uint8[B, out_capacity], lengths int32[B], statuses).
-
-    Routes to the Pallas TPU kernel (kernels/lz_pallas.py, scalar-core
-    parse + VPU granule copies) when enabled; identical results.
     """
-    from tpucomp import config as _cfg
-
-    if _cfg.pallas_enabled():
-        from tpucomp.kernels import lz_pallas as _lzp
-
-        if _lzp.supports_decode(comp.shape[-1], out_capacity):
-            return _lzp.decompress(comp, comp_sizes, out_capacity)
     s_max = comp.shape[-1] // 3 + 2
     seqs, s, total, ok = _jit_delimit(comp, comp_sizes, out_capacity, s_max)
     return _jit_materialize(comp, seqs, s, total, ok, out_capacity)

@@ -1,6 +1,6 @@
 """Batched Snappy codec.
 
-TPU-native re-design of the reference's snappy kernels (do_snap, reference
+Dense-XLA re-design of the reference's snappy kernels (do_snap, reference
 src/snappy/compression.hiph:281-389; do_unsnap 3-warp pipeline,
 src/snappy/decompression.hiph:195-213).  Streams are the raw Snappy format:
 a varint uncompressed length followed by tagged elements -- literals (tag
@@ -291,24 +291,11 @@ def _jit_emit(data, ls, ll, ml, off, s, lengths, out_max):
 
 def compress(data, lengths, opts=None):
     """Batched snappy compression.  data: uint8[B, C]; lengths: int32[B].
-    Returns (comp uint8[B, CMAX], comp_sizes int32[B]).
-
-    Routes to the Pallas TPU kernel (kernels/snappy_pallas.py, scalar-core
-    greedy parse with exact unbounded match extension in the 32768-byte
-    window) when enabled; the kernel's streams are byte-identical to the
-    sequential oracle and never larger than this module's block-clamped
-    XLA parse."""
-    from tpucomp import config as _cfg
-
+    Returns (comp uint8[B, CMAX], comp_sizes int32[B])."""
     c = data.shape[-1]
     out_max = snappy_max_compressed_chunk_size(c)
     s_max = c // MIN_MATCH + 2
     lengths = lengths.astype(jnp.int32)
-    if _cfg.pallas_enabled():
-        from tpucomp.kernels import snappy_pallas as _snp
-
-        if _snp.supports_compress(c):
-            return _snp.compress(data, lengths)
     mlen, dist, cand = _jit_match(data, lengths)
     ls, ll, ml, off, s = _jit_parse(mlen, dist, cand, lengths, s_max)
     return _jit_emit(data, ls, ll, ml, off, s, lengths, out_max)
@@ -336,18 +323,7 @@ def _jit_materialize(comp, seqs, s, total, ok, out_cap):
 
 def decompress(comp, comp_sizes, opts=None, out_capacity: int = 65536):
     """Batched snappy decompression.
-    Returns (data uint8[B, out_capacity], lengths int32[B], statuses).
-
-    Routes to the Pallas TPU kernel (kernels/snappy_pallas.py, scalar-core
-    branch-free element parse + VPU granule copies) when enabled;
-    identical results."""
-    from tpucomp import config as _cfg
-
-    if _cfg.pallas_enabled():
-        from tpucomp.kernels import snappy_pallas as _snp
-
-        if _snp.supports_decode(comp.shape[-1], out_capacity):
-            return _snp.decompress(comp, comp_sizes, out_capacity)
+    Returns (data uint8[B, out_capacity], lengths int32[B], statuses)."""
     s_max = comp.shape[-1] // 2 + 2
     seqs, s, total, ok, _ = _jit_delimit(comp, comp_sizes, out_capacity, s_max)
     return _jit_materialize(comp, seqs, s, total, ok, out_capacity)

@@ -2,7 +2,7 @@
 
 The reference addresses a batch as arrays of per-chunk device pointers with
 per-chunk sizes (reference include/hipcomp/lz4.h:106-243).  XLA wants dense,
-statically-shaped arrays, so the TPU-native representation of a batch of B
+statically-shaped arrays, so the JAX representation of a batch of B
 chunks with capacity C bytes is::
 
     ChunkBatch(data: uint8[B, C], lengths: int32[B])

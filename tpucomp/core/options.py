@@ -1,6 +1,6 @@
 """Per-codec option structs as frozen dataclasses.
 
-TPU-native mirror of the reference's run-time option structs:
+JAX mirror of the reference's run-time option structs:
   - hipcompBatchedLZ4Opts_t      (reference include/hipcomp/lz4.h:79-84)
   - hipcompBatchedCascadedOpts_t (reference include/hipcomp/cascaded.h:90-125)
   - hipcompBatchedSnappyOpts_t   (reference include/hipcomp/snappy.h:62-67)

@@ -1,6 +1,6 @@
 """Core value types: element dtypes and per-chunk status codes.
 
-TPU-native re-expression of the reference's C enums:
+JAX re-expression of the reference's C enums:
   - ``hipcompType_t``  (reference include/hipcomp.h:69-80)
   - ``hipcompStatus_t`` (reference include/hipcomp/shared_types.h:52-66)
 

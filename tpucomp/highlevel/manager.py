@@ -1,7 +1,7 @@
 """High-level interface ("HLIF" equivalent): managers over one contiguous
 buffer producing self-describing artifacts.
 
-TPU-native counterpart of hipcompManagerBase / ManagerBase / BatchManager
+JAX counterpart of hipcompManagerBase / ManagerBase / BatchManager
 (reference include/hipcomp/hipcompManager.hpp:141-236,
 src/highlevel/ManagerBase.hpp:80-326, BatchManager.hpp:71-331):
 

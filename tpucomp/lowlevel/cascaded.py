@@ -1,6 +1,6 @@
 """Cascaded low-level batch API.
 
-TPU-native counterpart of hipcompBatchedCascaded* (reference
+JAX counterpart of hipcompBatchedCascaded* (reference
 src/lowlevel/CascadedBatch.hip:306-462).
 """
 

@@ -1,6 +1,6 @@
 """LZ4 low-level batch API.
 
-TPU-native counterpart of hipcompBatchedLZ4* (reference
+JAX counterpart of hipcompBatchedLZ4* (reference
 src/lowlevel/LZ4Batch.cpp:71-224).  Temp space is 0 (the reference's
 hash-table temp buffer is internal to the matcher here).
 """

@@ -1,6 +1,6 @@
 """Snappy low-level batch API.
 
-TPU-native counterpart of hipcompBatchedSnappy* (reference
+JAX counterpart of hipcompBatchedSnappy* (reference
 src/lowlevel/SnappyBatch.cpp:83-244); temp space is 0 like the reference.
 """
 

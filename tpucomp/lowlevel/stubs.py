@@ -4,7 +4,7 @@ These algorithms live in external proprietary nvCOMP extension libraries
 that the reference merely wraps; when absent, every entry point returns
 hipcompErrorNotSupported (reference src/lowlevel/ansBatch.cpp:67-246,
 gdeflateBatch.cpp:67-293, BitcompBatch.hip:55-300; README.md:6-7).  The
-TPU framework exposes the same slots with the same behavior.
+framework exposes the same slots with the same behavior.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 // Native host runtime for tpucomp.
 //
 // The reference's host-side C++ (staging, buffer bookkeeping, CPU-side
-// verification) maps here; the TPU compute path stays in XLA.  Exposed as a
+// verification) maps here; the device compute path stays in XLA.  Exposed as a
 // plain C ABI consumed through ctypes (no pybind11 in this environment).
 //
 // Components:

@@ -1,6 +1,6 @@
 """Stage primitives: delta, run-length encode, frame-of-reference bitpack.
 
-TPU-native counterparts of the reference's standalone stage classes
+JAX counterparts of the reference's standalone stage classes
 (DeltaGPU, RunLengthEncodeGPU, BitPackGPU) and the fused cascaded block
 primitives (reference src/CascadedKernels.hiph).
 

@@ -1,6 +1,6 @@
 """BitPack stage: frame-of-reference + fixed-width bit packing.
 
-TPU-native re-expression of BitPackGPU (reference src/BitPackGPU.hip:185-298)
+JAX re-expression of BitPackGPU (reference src/BitPackGPU.hip:185-298)
 and the fused cascaded bitpack blocks (reference
 src/CascadedKernels.hiph:395-553, 556-618).  The on-disk blob layout matches
 the reference exactly so artifacts are interchangeable:
@@ -54,10 +54,10 @@ def for_bitwidth(x, n):
     wide_u = jnp.uint32 if width <= 4 else jnp.uint64
     # The min/max REDUCTIONS must run at >= 32-bit width: signed int8/int16
     # where+min/max reductions MISCOMPILE under jit in this jax/XLA build
-    # (0.9.0) -- jit returns garbage extrema while eager is correct, CPU and
-    # TPU alike (caught by the round-5 hardware sweep as a silent
-    # fallback-instead-of-compress on SHORT data; regression test
-    # tests/test_ops.py::test_for_bitwidth_narrow_dtypes_under_jit).
+    # (0.9.0) -- jit returns garbage extrema while eager is correct (seen
+    # as a silent fallback-instead-of-compress on SHORT data; regression
+    # test tests/test_ops.py::test_for_bitwidth_narrow_dtypes_under_jit).
+    # chip_smoke.py's dtype x layer sweep checks the same on the GPU.
     # Sentinels stay at the ELEMENT-width extrema so semantics are unchanged.
     xs = bits.bitcast(x, sdtype).astype(wide_s)
     i = jnp.arange(x.shape[-1], dtype=jnp.int32)
@@ -80,10 +80,7 @@ def for_bitwidth(x, n):
 
 
 def _pack_words_dispatch(u, n, bw, max_words: int, width: int):
-    """Word-granularity scatter pack.  (The standalone Pallas pack kernel
-    was retired in round 3: on hardware it measured ~250x slower than this
-    XLA scatter, and the fused cascaded kernel's block_write path --
-    kernels/cascaded_pallas.py -- is the production TPU bitpack.)"""
+    """Word-granularity scatter pack."""
     return _pack_words_scatter64(u, bw, max_words)
 
 
@@ -193,6 +190,5 @@ def bitunpack(blob, out_elements: int, width: int):
 
 def _unpack_words_dispatch(units, bw, out_elements: int):
     """Unpack units -> FOR-relative values via two monotone unit gathers
-    (reference src/CascadedKernels.hiph:595-612, vectorized).  The fused
-    cascaded kernel's block_bitunpack path is the production TPU unpack."""
+    (reference src/CascadedKernels.hiph:595-612, vectorized)."""
     return _unpack_words_gather64(units, bw, out_elements)

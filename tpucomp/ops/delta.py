@@ -1,6 +1,6 @@
 """Delta stage: adjacent differences and their prefix-sum inverse.
 
-TPU-native re-expression of DeltaGPU (reference src/DeltaGPU.hip:79-142) and
+JAX re-expression of DeltaGPU (reference src/DeltaGPU.hip:79-142) and
 the fused cascaded delta blocks (reference src/CascadedKernels.hiph:318-377).
 All arithmetic wraps in the unsigned element type.
 

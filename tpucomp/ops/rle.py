@@ -1,6 +1,6 @@
 """Run-length-encode stage.
 
-TPU-native re-expression of RunLengthEncodeGPU (reference
+JAX re-expression of RunLengthEncodeGPU (reference
 src/RunLengthEncodeGPU.hip:167-560) and the fused cascaded RLE blocks
 (reference src/CascadedKernels.hiph:129-305).  Semantics match the reference:
 

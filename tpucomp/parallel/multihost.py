@@ -2,9 +2,9 @@
 
 The reference is strictly single-process/single-GPU (SURVEY.md §2.3); this
 is the new surface required by the project north star: a chunk batch
-sharded data-parallel across a multi-host TPU pod slice, codec options
+sharded data-parallel across the devices of several hosts, codec options
 replicated, compressed outputs + sizes gathered back in original chunk
-order over ICI/DCN.
+order over the cluster's interconnect.
 
 Usage (one process per host)::
 
@@ -35,11 +35,10 @@ from tpucomp.parallel.sharding import DATA_AXIS, pad_batch
 def free_port() -> int:
     """An ephemeral localhost port for the jax.distributed coordinator.
 
-    Hardcoded ports collide with lingering workers from a previous run
-    (ADVICE r3); binding port 0 on a throwaway socket asks the OS for a
-    currently-free one.  Probes on all interfaces ("") so the port is free
-    on whatever interface the coordinator binds, not just loopback
-    (ADVICE r4).  (Inherent TOCTOU: the port can be reclaimed between here
+    Hardcoded ports collide with lingering workers from a previous run;
+    binding port 0 on a throwaway socket asks the OS for a currently-free
+    one.  Probes on all interfaces ("") so the port is free on whatever
+    interface the coordinator binds, not just loopback.  (Inherent TOCTOU: the port can be reclaimed between here
     and the coordinator's bind -- callers that retry should call this
     again for each attempt.)
     """

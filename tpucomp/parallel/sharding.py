@@ -2,10 +2,12 @@
 
 The reference's only parallelism strategy is chunk-level data parallelism
 (grid(batch_size), SURVEY.md §2.3); it has no multi-device layer at all.
-This module is the new TPU-native distribution surface: a batch of
-independent chunks shards over the ``data`` axis of a Mesh, codec options
-replicate (they are static), and compressed outputs + sizes gather back in
-original chunk order -- XLA inserts the all-gather over ICI/DCN.
+This module is the distribution surface: a batch of independent chunks
+shards over the ``data`` axis of a 1-D Mesh, codec options replicate (they
+are static), and compressed outputs + sizes gather back in original chunk
+order -- XLA inserts the all-gather, which runs as NCCL over NVLink on the
+cards of one GPU host (every card reaches every other at the same rate, so
+a 1-D mesh loses nothing).
 
 Because every chunk is independent, the sharded result is bit-identical to
 the single-chip result by construction.

@@ -1,6 +1,6 @@
 """Vectorized bit-twiddling primitives shared by all codecs.
 
-Everything here is dense jnp math (VPU-friendly): no data-dependent shapes.
+Everything here is dense elementwise jnp math: no data-dependent shapes.
 Shift helpers guard the out-of-range shift amounts that XLA leaves undefined.
 """
 
@@ -77,8 +77,8 @@ def bytes_to_units_le(b, width: int):
         return b.astype(jnp.uint8)
     assert b.shape[-1] % width == 0
     udtype = _UNSIGNED_OF_WIDTH[width]
-    # one bitcast beats the shift/or ladder on TPU: 5.2 vs 7.9 ms for 38 MB
-    # (scripts/xform_bench2.py) -- XLA folds any adjacent transpose into it
+    # one bitcast instead of a shift/or ladder; XLA folds any adjacent
+    # transpose into it
     return jax.lax.bitcast_convert_type(
         b.reshape(*b.shape[:-1], -1, width), udtype
     )

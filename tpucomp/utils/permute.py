@@ -1,10 +1,9 @@
 """Sort-based data-movement primitives.
 
-TPU design note: XLA's sort and scans run at near-memory-bandwidth on the
-VPU, while element-granularity gather/scatter runs ~100x slower (measured
-on v5e: sort 1M elems ~ cumsum ~ 1ms-class; gather 1M elems ~ 16ms-class).
-Every data-dependent permutation in this library is therefore expressed as
-a sort:
+Every data-dependent permutation in this library is expressed as a sort
+(the library was first tuned on hardware where element gather/scatter cost
+far more than a sort; whether that holds on the GPU is measured per
+primitive, see PERF.md):
 
   - compaction  (RLE encode, stream packing)  -> sort by (valid, position)
   - expansion   (RLE decode)                  -> merge-sort + forward-fill
@@ -79,7 +78,7 @@ def place(values, targets, valid, out_size: int):
     exactly once (alignment gaps must be covered by explicit zero-valued
     entries); positions >= total read 0.  len(values) must be >= out_size.
 
-    One stable (key, value) sort -- the TPU replacement for scatter.
+    One stable (key, value) sort in place of a scatter.
     Passing int64 ``targets`` (requires x64 mode) selects a wide sort key
     whose invalid-sentinel sits above any 63-bit target -- needed once
     outputs can exceed the 2^30 int32 sentinel (>= 1 GiB artifacts).
